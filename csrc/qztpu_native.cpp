@@ -1,4 +1,4 @@
-// qztpu_native — host-side native runtime for the TPU-native QATzip rebuild.
+// qztpu_native — host-side native runtime for the accelerated QATzip rebuild.
 //
 // Provides the byte-serial pieces that stay on the host CPU:
 //   * xxh32 (LZ4 frame checksums; analog of the reference's vendored xxhash,
@@ -8,10 +8,11 @@
 //   * LZ4s block compress/decode-to-sequences (analog of the QAT LZ4s output
 //     consumed by utils/qzstd.c:117-180)
 //   * lz4s -> zstd post-process bridge (ZSTD_compressSequences, analog of
-//     utils/qzstd.c:211-278)
+//     utils/qzstd.c:211-278); compiled only where <zstd.h> exists, else
+//     every qz_zstd_* entry point returns QZ_ZSTD_UNAVAILABLE
 //   * DEFLATE static/dynamic-Huffman bit-packing from token arrays (host leg
-//     of the hybrid TPU pipeline; also the CPU reference for the on-device
-//     Pallas bitpacker)
+//     of the hybrid device pipeline; also the CPU reference for the
+//     on-device bitpacker)
 //
 // Exposed as a plain C ABI for ctypes. All functions are thread-safe and
 // GIL-free (no Python API usage).
@@ -24,9 +25,14 @@
 #include <thread>
 #include <vector>
 
+#if __has_include(<zstd.h>)
+#define QZ_HAVE_ZSTD 1
 #define ZSTD_STATIC_LINKING_ONLY 1
 #include <zstd.h>
 #include <zstd_errors.h>
+#else
+#define QZ_HAVE_ZSTD 0
+#endif
 
 extern "C" {
 
@@ -498,6 +504,9 @@ int64_t qz_lz4s_decode_block(const uint8_t* src, int64_t n,
 // session; src is the original uncompressed input. Emits standard zstd
 // frames into out. Returns bytes written or negative zstd error.
 // ---------------------------------------------------------------------------
+#if QZ_HAVE_ZSTD
+int32_t qz_have_zstd() { return 1; }
+
 int64_t qz_zstd_post_process(const uint8_t* src, int64_t src_len,
                              const uint8_t* lz4s_buf, int64_t lz4s_len,
                              int32_t mini_match, uint8_t* out,
@@ -573,6 +582,24 @@ int64_t qz_zstd_decompress(const uint8_t* src, int64_t n, uint8_t* dst,
 }
 
 uint64_t qz_zstd_compress_bound(uint64_t n) { return ZSTD_compressBound(n); }
+#else
+// zstd.h absent at build time: the rest of the library still builds; the
+// Python wrappers check qz_have_zstd() and raise before calling these.
+static const int64_t QZ_ZSTD_UNAVAILABLE = -1999;
+int32_t qz_have_zstd() { return 0; }
+int64_t qz_zstd_post_process(const uint8_t*, int64_t, const uint8_t*, int64_t,
+                             int32_t, uint8_t*, int64_t, int32_t) {
+  return QZ_ZSTD_UNAVAILABLE;
+}
+int64_t qz_zstd_compress(const uint8_t*, int64_t, uint8_t*, int64_t,
+                         int32_t) {
+  return QZ_ZSTD_UNAVAILABLE;
+}
+int64_t qz_zstd_decompress(const uint8_t*, int64_t, uint8_t*, int64_t) {
+  return QZ_ZSTD_UNAVAILABLE;
+}
+uint64_t qz_zstd_compress_bound(uint64_t n) { return n + (n >> 7) + 512; }
+#endif  // QZ_HAVE_ZSTD
 
 // ---------------------------------------------------------------------------
 // DEFLATE static-Huffman bit packing from token arrays.
@@ -827,7 +854,7 @@ int rle_code_lengths(const uint8_t* lens, int n, CLOp* ops) {
 const uint8_t CL_ORDER[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5,
                               11, 4, 12, 3, 13, 2, 14, 1, 15};
 
-// token unpack helpers (packed u32 tokens from the TPU pipeline):
+// token unpack helpers (packed u32 tokens from the device pipeline):
 //   match:        bit31=1, [16,31) match length, [0,16) dist-1
 //   literal run:  bit31=0 bit30=1, [0,14) run length (bytes read from src
 //                 at the running position)
@@ -1074,7 +1101,7 @@ int64_t qz_deflate_pack(const uint8_t* src, int64_t n, const uint32_t* toks,
   return (bw.bitpos + 7) >> 3;
 }
 
-// Pack TPU tokens into a standard LZ4 block, enforcing the LZ4 end rules
+// Pack device tokens into a standard LZ4 block, enforcing the LZ4 end rules
 // (last 5 bytes literal; no match starting within the last 12 bytes) by
 // demoting/trimming offending matches to literals. Returns bytes written,
 // 0 when dst is too small.
@@ -1190,7 +1217,7 @@ int64_t qz_lz4_pack(const uint8_t* src, int64_t n, const uint32_t* toks,
   return (int64_t)(op - dst);
 }
 
-// Pack TPU tokens into an LZ4s block (stored match length is
+// Pack device tokens into an LZ4s block (stored match length is
 // len-(mini_match-1); trailing literal-only sequence has no offset field).
 int64_t qz_lz4s_pack(const uint8_t* src, int64_t n, const uint32_t* toks,
                      int64_t ntok, uint8_t* dst, int64_t cap,

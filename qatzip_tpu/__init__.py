@@ -1,10 +1,10 @@
-"""qatzip_tpu — a TPU-native lossless codec framework.
+"""qatzip_tpu — an accelerator-native lossless codec framework.
 
 A from-scratch re-design of Intel QATzip's capabilities (reference:
-liumiaomiaoIntel/QATzip) for TPU hardware: gzip/DEFLATE, LZ4, LZ4s and the
-lz4s→zstd post-process pipeline, with chunk-data-parallel compression
-dispatched over a JAX device mesh, XLA/Pallas compute kernels, a software
-fallback path, streaming and async APIs, and qzip/qzstd CLI tools.
+liumiaomiaoIntel/QATzip) for a JAX accelerator (an NVIDIA GPU):
+gzip/DEFLATE, LZ4, LZ4s and the lz4s→zstd post-process pipeline, with
+chunk-data-parallel compression dispatched over a JAX device mesh, XLA
+compute programs, a software fallback path, streaming and async APIs, and qzip/qzstd CLI tools.
 
 Quick start::
 

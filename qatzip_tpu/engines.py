@@ -8,7 +8,8 @@ completions are stitched in order.
 
 Engines:
   * HostEngine — multithreaded zlib/native-LZ4 (the SW instance pool)
-  * TPU engine — built by qatzip_tpu.parallel.dispatch (batched XLA kernels)
+  * DeviceEngine — built by qatzip_tpu.parallel.dispatch (batched XLA
+    programs on the accelerator)
 """
 
 from __future__ import annotations

@@ -9,6 +9,7 @@ mirroring the reference's hardware-absent SW-fallback philosophy
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import sys
@@ -19,24 +20,63 @@ import numpy as np
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "..", "csrc", "qztpu_native.cpp")
 _SO = os.path.join(_DIR, "_qztpu_native.so")
+# serializes builds across processes (pytest workers, pool children): a
+# process must never load a library another one is still writing
+_BUILD_LOCK = os.path.join(_DIR, ".native_build.lock")
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _u32p = ctypes.POINTER(ctypes.c_uint32)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 
 
+# why the library is missing (None while it is loaded or not yet tried);
+# the device engine reports it instead of silently running on the host
+build_error: str | None = None
+
+
+def _has_zstd() -> bool:
+    """Does the compiler see zstd's header? Without it the library builds
+    with the zstd bridge compiled out (csrc guards it with
+    __has_include) and must not link -lzstd."""
+    probe = subprocess.run(["g++", "-x", "c++", "-E", "-", "-o", os.devnull],
+                           input="#include <zstd.h>\n", capture_output=True,
+                           text=True, timeout=60)
+    return probe.returncode == 0
+
+
+def _compile_to(path: str, cmd: list, timeout: int):
+    """Run a g++ command that writes ``path`` via a private temp file and
+    an atomic rename, so a concurrent loader never sees a partial file."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    res = subprocess.run([*cmd, "-o", tmp], capture_output=True, text=True,
+                         timeout=timeout)
+    if res.returncode == 0:
+        os.replace(tmp, path)
+    elif os.path.exists(tmp):
+        os.unlink(tmp)
+    return res
+
+
 def _build() -> bool:
+    global build_error
     try:
         cmd = [
             "g++", "-O3", "-fPIC", "-std=c++17", "-march=native", "-shared",
-            "-o", _SO, _SRC, "-lzstd",
+            _SRC,
         ]
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=180)
+        if _has_zstd():
+            cmd.append("-lzstd")
+        else:
+            sys.stderr.write("qztpu_native: zstd.h not found — building "
+                             "without the zstd bridge\n")
+        res = _compile_to(_SO, cmd, timeout=180)
         if res.returncode != 0:
+            build_error = "native build failed:\n" + res.stderr
             sys.stderr.write("qztpu_native build failed:\n" + res.stderr + "\n")
             return False
         return True
-    except Exception as e:  # noqa: BLE001
+    except (OSError, subprocess.SubprocessError) as e:
+        build_error = f"native build error: {e}"
         sys.stderr.write(f"qztpu_native build error: {e}\n")
         return False
 
@@ -65,11 +105,10 @@ def _build_pyext() -> bool:
         # link by soname (-l:) not absolute path: an absolute path lands
         # verbatim in DT_NEEDED and breaks when the repo moves; with a
         # bare name the $ORIGIN rpath resolves it next to this .so
-        cmd = ["g++", "-O2", "-fPIC", "-shared", "-I", inc,
-               "-o", _PYEXT_SO, _PYEXT_SRC,
+        cmd = ["g++", "-O2", "-fPIC", "-shared", "-I", inc, _PYEXT_SRC,
                "-L", os.path.dirname(_SO), "-l:" + os.path.basename(_SO),
                "-Wl,-rpath,$ORIGIN"]
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+        res = _compile_to(_PYEXT_SO, cmd, timeout=60)
         if res.returncode != 0:
             sys.stderr.write("qztpu_pyext build failed:\n" + res.stderr + "\n")
             return False
@@ -154,6 +193,9 @@ class _NativeLib:
                                          ctypes.c_int64]
         L.qz_zstd_compress_bound.restype = ctypes.c_uint64
         L.qz_zstd_compress_bound.argtypes = [ctypes.c_uint64]
+        L.qz_have_zstd.restype = ctypes.c_int32
+        L.qz_have_zstd.argtypes = []
+        self.have_zstd = bool(L.qz_have_zstd())
         L.qz_deflate_static_block.restype = ctypes.c_int64
         L.qz_deflate_static_block.argtypes = [
             _u8p, ctypes.POINTER(ctypes.c_uint16),
@@ -574,8 +616,14 @@ class _NativeLib:
             raise ValueError("malformed LZ4s block")
         return ll[:r].copy(), mm[:r].copy(), oo[:r].copy()
 
+    def _need_zstd(self) -> None:
+        if not self.have_zstd:
+            raise RuntimeError("zstd is unavailable: the native library was "
+                               "built without zstd.h")
+
     def zstd_post_process(self, src: bytes, lz4s_blocks: bytes,
                           mini_match: int = 3, level: int = 0) -> bytes:
+        self._need_zstd()
         cap = int(self._lib.qz_zstd_compress_bound(len(src))) + 4096
         dst = np.empty(cap, np.uint8)
         sa = np.frombuffer(src, np.uint8) if src else np.empty(0, np.uint8)
@@ -589,6 +637,7 @@ class _NativeLib:
         return dst[:r].tobytes()
 
     def zstd_compress(self, src: bytes, level: int = 3) -> bytes:
+        self._need_zstd()
         cap = int(self._lib.qz_zstd_compress_bound(len(src))) + 64
         dst = np.empty(cap, np.uint8)
         sa = np.frombuffer(src, np.uint8) if src else np.empty(0, np.uint8)
@@ -599,6 +648,7 @@ class _NativeLib:
         return dst[:r].tobytes()
 
     def zstd_decompress(self, src: bytes, out_cap: int) -> bytes:
+        self._need_zstd()
         dst = np.empty(max(out_cap, 1), np.uint8)
         sa = np.frombuffer(src, np.uint8) if src else np.empty(0, np.uint8)
         r = self._lib.qz_zstd_decompress(self._as_u8p(sa), len(src),
@@ -635,7 +685,7 @@ class _NativeLib:
 
     def deflate_pack(self, src, tokens: np.ndarray, ntok: int,
                      final: bool = True, mode: int = 0) -> bytes:
-        """Pack packed-u32 TPU tokens into a raw deflate stream.
+        """Pack packed-u32 device tokens into a raw deflate stream.
 
         mode: 0 = best of stored/static/dynamic, 1 = static, 2 = dynamic.
         The dst staging buffer is pooled (qz_malloc/qz_free) — this runs
@@ -733,19 +783,32 @@ lib: _NativeLib | None = None
 
 
 def _load():
-    global lib
+    global lib, build_error
     with _lock:
         if lib is not None:
             return
-        if _needs_build() and not _build():
-            return
         try:
-            lib = _NativeLib(ctypes.CDLL(_SO))
-        except OSError as e:
-            sys.stderr.write(f"qztpu_native load failed: {e}\n")
-            return
-        _load_pyext()
+            lock = open(_BUILD_LOCK, "a")
+        except OSError:             # read-only install: load what is there
+            lock = None
+        try:
+            if lock is not None:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+            if _needs_build() and not _build():
+                return
+            try:
+                lib = _NativeLib(ctypes.CDLL(_SO))
+            except (OSError, AttributeError) as e:
+                build_error = f"native load failed: {e}"
+                sys.stderr.write(f"qztpu_native load failed: {e}\n")
+                return
+            _load_pyext()
+        finally:
+            if lock is not None:
+                lock.close()        # releases the flock
 
 
 if os.environ.get("QZTPU_NO_NATIVE") != "1":
     _load()
+else:
+    build_error = "QZTPU_NO_NATIVE=1"

@@ -1,10 +1,10 @@
-"""Batched CRC32 on the MXU via GF(2) linear algebra.
+"""Batched CRC32 on the matrix units via GF(2) linear algebra.
 
 CRC32 is affine over GF(2): crc(M) = crc(0^n) XOR L(M) where L is linear
 in the message bits. For a fixed message length n, L is a (8n × 32)
 bit-matrix V, so a whole batch of chunk CRCs is ONE matmul:
 
-    counts[B, 32] = bits[B, 8n] @ V[8n, 32]      (bf16 on the MXU)
+    counts[B, 32] = bits[B, 8n] @ V[8n, 32]      (bf16, tensor cores)
     crc[B]        = crc(0^n) XOR packbits(counts & 1)
 
 f32 accumulation is exact for counts <= 2^24 (8n = 524288 < 2^24 for the
@@ -97,7 +97,7 @@ def crc32_batch_device(data, *, n: int):
 
     Returns a (B,) uint32 jax array. Rows shorter than n (zero-padded)
     get the crc of the PADDED message — callers must use host crc32 for
-    ragged rows (see TpuEngine).
+    ragged rows (see DeviceEngine).
     """
     import jax
     import jax.numpy as jnp

@@ -3,7 +3,7 @@
 The reference offloads the whole decompress loop to QAT silicon
 (cpaDcDecompressData, src/qatzip.c:2543). LZ4 decode's only serial part
 is the window copy: each match byte copies an earlier OUTPUT byte, so
-decode order matters. The TPU-native formulation splits it:
+decode order matters. The device formulation splits it:
 
   * host (csrc qz_lz4_ref_block): one linear parse builds a reference
     plane — ref[i] is the literal byte (encoded negative) or the earlier
@@ -12,13 +12,11 @@ decode order matters. The TPU-native formulation splits it:
     entry is a resolved literal. Chains of depth D resolve in ceil(log2 D)
     rounds of batched gathers over the whole member batch.
 
-Honesty note (measured, see docs/ROADMAP.md): on this hardware per-element
-gathers serialize (~86M elem/s), so each doubling round over a
-(128, 64KB) batch costs ~90ms — the host's native LZ4 decode wins by
-orders of magnitude. The device leg exists, is correct, and is selected
-only via QZTPU_DEVICE_DECODE=1; the default router sends members to the
-host pool, exactly as the reference routes non-processable requests to
-software (isQATProcessable, src/qatzip.c:2886-2899).
+The device leg exists, is correct, and is selected only via
+QZTPU_DEVICE_DECODE=1; the default router sends members to the host pool
+(batched native LZ4 decode), as the reference routes non-processable
+requests to software (isQATProcessable, src/qatzip.c:2886-2899). Its
+speed on the GPU is not measured yet.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Same machinery as the deflate device packer (dense per-position
 emissions, cumsum offsets, group-window OR-packing, one scatter-add
 assembly), at BYTE granularity. The LZ4 format constraint driving the
-design (docs/ROADMAP.md): only the FINAL sequence may be literal-only, so
+design: only the FINAL sequence may be literal-only, so
 literal runs cannot be split — a run's litlen extension bytes must ride
 one emission. Emissions stay <= 4 bytes (one u32 word) by
 

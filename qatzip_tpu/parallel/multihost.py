@@ -1,15 +1,17 @@
-"""Multi-host (pod-scale) chunk distribution.
+"""Multi-process chunk distribution.
 
 The reference scales by N processes × M threads on one node, with the perf
 harness summing per-process Gbps (test/performance_tests/run_perf_test.sh:
-53-125). The TPU-native equivalent spans hosts: ``jax.distributed`` brings
-up the pod, each host compresses the chunk-stripe it owns with its local
-chips (ICI-local work, no DCN traffic on the data path), and the stitcher
-reassembles members in submission order — offsets are exchanged via a tiny
-psum'd stats array, the only cross-host collective.
+53-125). Here ``jax.distributed`` brings up the processes, each process
+compresses the chunk-stripe it owns with its local GPUs (no cross-process
+traffic on the data path), and the stitcher reassembles members in
+submission order — offsets are exchanged via a tiny gathered stats array,
+the only cross-process collective. Processes that share a host each need
+a GPU of their own (the launcher sets CUDA_VISIBLE_DEVICES; see
+tools/distrun.py): a JAX process reserves most of a card's memory.
 
-Design notes (scaling-book recipe): chunks are independent, so the mesh is
-1-D ``dp`` over every chip in the pod; the per-host stripe is
+Design notes: chunks are independent, so the mesh is 1-D ``dp`` over every
+device; the per-process stripe is
 ``chunks[host_id::num_hosts]`` ... striped round-robin so file tails don't
 skew one host. Compressed members stay host-local; the caller concatenates
 stripe outputs in stripe order (equivalent to the ordered retirement of
@@ -28,8 +30,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      process_id: Optional[int] = None) -> Tuple[int, int]:
     """Bring up jax.distributed (idempotent). Returns (pid, nprocs).
 
-    With no arguments, reads the standard JAX coordinator env vars; on a
-    single host it is a no-op returning (0, 1).
+    With no arguments, reads QZTPU_NUM_PROCESSES / QZTPU_PROCESS_ID; with
+    one process it is a no-op returning (0, 1).
     """
     import jax
 

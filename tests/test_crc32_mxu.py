@@ -21,13 +21,13 @@ def test_mxu_crc32_matches_zlib():
 
 def test_engine_with_device_crc(monkeypatch):
     import jax
-    from qatzip_tpu.parallel.dispatch import TpuEngine
+    from qatzip_tpu.parallel.dispatch import DeviceEngine
 
     monkeypatch.setenv("QZTPU_DEVICE_CRC", "1")
     chunks = [bytes(np.random.default_rng(i).integers(
         0, 256, 4096, dtype=np.uint8)) for i in range(3)]
     chunks.append(b"ragged tail chunk")  # short row -> host crc path
-    eng = TpuEngine(jax.devices(), "deflate")
+    eng = DeviceEngine(jax.devices(), "deflate")
     res = eng.compress_chunks(chunks, level=1, algorithm="deflate")
     for (payload, crc), c in zip(res, chunks):
         assert crc == (zlib.crc32(c) & 0xFFFFFFFF)

@@ -295,9 +295,9 @@ def test_dynamic_engine_path_single_device(monkeypatch):
     monkeypatch.setenv("QZTPU_DEVICE_PACK", "1")
     monkeypatch.setenv("QZTPU_TILE_B", "256")
     import jax
-    from qatzip_tpu.parallel.dispatch import TpuEngine
+    from qatzip_tpu.parallel.dispatch import DeviceEngine
     rng = np.random.default_rng(9)
-    eng = TpuEngine([jax.devices()[0]], "deflate")
+    eng = DeviceEngine([jax.devices()[0]], "deflate")
     chunks = [
         (b"dyn engine " * 7000)[:65536],
         rng.integers(0, 256, 65536, dtype=np.uint8).tobytes(),  # stored
@@ -322,12 +322,12 @@ def test_dynamic_engine_path_mesh(monkeypatch):
         pytest.skip("native lib unavailable")
     monkeypatch.setenv("QZTPU_DEVICE_PACK", "1")
     import jax
-    from qatzip_tpu.parallel.dispatch import TpuEngine
+    from qatzip_tpu.parallel.dispatch import DeviceEngine
     devs = jax.devices()
     if len(devs) < 2:
         pytest.skip("needs a multi-device mesh")
     rng = np.random.default_rng(11)
-    eng = TpuEngine(devs, "deflate")
+    eng = DeviceEngine(devs, "deflate")
     chunks = [
         (b"mesh dyn engine " * 5000)[:65536],
         rng.choice(np.frombuffer(b"ACGT", np.uint8), 65536).tobytes(),

@@ -18,7 +18,7 @@ def test_cnv_detects_injected_corruption(monkeypatch):
     if native.lib is None:
         pytest.skip("native lib unavailable")
     import jax
-    from qatzip_tpu.parallel.dispatch import TpuEngine
+    from qatzip_tpu.parallel.dispatch import DeviceEngine
 
     chunks = [(b"inject %d " % i) * 400 for i in range(4)]
     real_pack = native.lib.deflate_pack
@@ -32,7 +32,7 @@ def test_cnv_detects_injected_corruption(monkeypatch):
         return bytes(out)
 
     monkeypatch.setattr(native.lib, "deflate_pack", corrupt_pack)
-    eng = TpuEngine(jax.devices(), "deflate")
+    eng = DeviceEngine(jax.devices(), "deflate")
     res = eng.compress_chunks(chunks, level=1, algorithm="deflate", cnv=True)
     for (payload, crc), c in zip(res, chunks):
         # every returned payload must decode correctly — corrupted ones
@@ -46,9 +46,9 @@ def test_cnv_off_passes_through(monkeypatch):
     if native.lib is None:
         pytest.skip("native lib unavailable")
     import jax
-    from qatzip_tpu.parallel.dispatch import TpuEngine
+    from qatzip_tpu.parallel.dispatch import DeviceEngine
 
     chunks = [b"trust " * 500]
-    eng = TpuEngine(jax.devices(), "deflate")
+    eng = DeviceEngine(jax.devices(), "deflate")
     res = eng.compress_chunks(chunks, level=1, algorithm="deflate", cnv=False)
     assert zlib.decompressobj(-15).decompress(res[0][0]) == chunks[0]

@@ -5,8 +5,6 @@ The device emits final LZ4 block bytes (ops/lz4_pack.py); chunks whose
 literal runs exceed the per-emission budget fall back to the host coder
 (the ok flag — see the module docstring for the format constraint)."""
 
-import os
-
 import numpy as np
 import pytest
 
@@ -14,6 +12,7 @@ import jax.numpy as jnp
 
 from qatzip_tpu import native
 from qatzip_tpu.ops.lz4_pack import lz4_pack_device
+from tests.corpus import text_like
 
 pytestmark = pytest.mark.skipif(native.lib is None,
                                 reason="native lib unavailable")
@@ -36,7 +35,7 @@ def test_lz4_device_pack_roundtrips():
     rng = np.random.default_rng(4)
     n = 16384
     rows = [
-        open("/root/reference/src/qatzip.c", "rb").read()[:n],
+        text_like(n),
         b"A" * n,                       # zero-literal 273-match chains
         rng.choice(np.frombuffer(b"ACGT", np.uint8), n).tobytes(),
         b"hello",                       # tiny: all-literal final sequence
@@ -70,9 +69,9 @@ def test_lz4_device_pack_engine_path(monkeypatch):
     monkeypatch.setenv("QZTPU_DEVICE_PACK", "1")
     monkeypatch.setenv("QZTPU_CNV", "1")
     import jax
-    from qatzip_tpu.parallel.dispatch import TpuEngine
+    from qatzip_tpu.parallel.dispatch import DeviceEngine
     rng = np.random.default_rng(8)
-    eng = TpuEngine([jax.devices()[0]], "lz4")
+    eng = DeviceEngine([jax.devices()[0]], "lz4")
     chunks = [
         b"engine path " * 3000,
         rng.integers(0, 256, 50000, dtype=np.uint8).tobytes(),  # fallback

@@ -1,4 +1,4 @@
-"""TPU LZ77 pipeline + accelerated engine tests.
+"""Device LZ77 pipeline + accelerated engine tests.
 
 Mirrors the reference's HW/SW-equivalence strategy (test/main.c -m 17
 qzFuncTests): accelerated-path output must decode with stock zlib / the SW
@@ -137,15 +137,15 @@ def test_lz4s_pack_roundtrip(sample_chunks, tokenized):
 
 def test_tpu_engine_session_end_to_end(sample_chunks):
     """Full session through the accelerated engine (device = test CPU mesh
-    chip; same code path as TPU)."""
+    chip; same code path as the GPU)."""
     from qatzip_tpu import QzSession, params as P
-    from qatzip_tpu.parallel.dispatch import TpuEngine
+    from qatzip_tpu.parallel.dispatch import DeviceEngine
     import jax
 
     blob = b"".join(sample_chunks) * 3
     sess = QzSession()
     sess.setup_deflate(P.get_defaults("deflate"))
-    sess._engine = TpuEngine(jax.devices(), "deflate")
+    sess._engine = DeviceEngine(jax.devices(), "deflate")
     out = sess.compress(blob)
     # decode via stock zlib (multi-member gzip)
     pieces, pos = [], 0
@@ -162,13 +162,13 @@ def test_tpu_engine_session_end_to_end(sample_chunks):
 
 def test_tpu_engine_lz4_session(sample_chunks):
     from qatzip_tpu import QzSession, params as P
-    from qatzip_tpu.parallel.dispatch import TpuEngine
+    from qatzip_tpu.parallel.dispatch import DeviceEngine
     import jax
 
     blob = b"".join(sample_chunks)
     sess = QzSession()
     sess.setup_lz4(P.get_defaults("lz4"))
-    sess._engine = TpuEngine(jax.devices(), "lz4")
+    sess._engine = DeviceEngine(jax.devices(), "lz4")
     out = sess.compress(blob)
     dsess = QzSession()
     dsess.setup_lz4(P.get_defaults("lz4"))
@@ -177,10 +177,10 @@ def test_tpu_engine_lz4_session(sample_chunks):
 
 def test_engine_cnv_verify(sample_chunks):
     """CnV decode-verify accepts valid payloads (fallback untriggered)."""
-    from qatzip_tpu.parallel.dispatch import TpuEngine
+    from qatzip_tpu.parallel.dispatch import DeviceEngine
     import jax
 
-    eng = TpuEngine(jax.devices(), "deflate")
+    eng = DeviceEngine(jax.devices(), "deflate")
     res = eng.compress_chunks(sample_chunks, level=1, algorithm="deflate",
                               cnv=True)
     for (payload, crc), c in zip(res, sample_chunks):

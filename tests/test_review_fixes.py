@@ -11,7 +11,7 @@ def test_large_hw_buff_session_on_engine():
     split into device rows and payloads joined into one raw stream)."""
     import jax
     from qatzip_tpu import QzSession, params as P
-    from qatzip_tpu.parallel.dispatch import TpuEngine
+    from qatzip_tpu.parallel.dispatch import DeviceEngine
 
     rng = np.random.default_rng(5)
     blob = (b"large chunk config " * 9000
@@ -20,7 +20,7 @@ def test_large_hw_buff_session_on_engine():
     params.common.hw_buff_sz = 131072
     sess = QzSession()
     sess.setup_deflate(params)
-    sess._engine = TpuEngine(jax.devices(), "deflate")
+    sess._engine = DeviceEngine(jax.devices(), "deflate")
     out = sess.compress(blob)
     # stock zlib multi-member decode
     pieces, pos = [], 0
@@ -223,33 +223,17 @@ def test_crc32_combine_zero_len_zlib_semantics():
 
 
 def test_k4_histogram_small_n_routes_to_strip(monkeypatch):
-    """Round-3 review: the k4 VMEM histogram kernel needs n % 1024 == 0;
-    n=512 must route to the XLA strip reduce instead of crashing."""
+    """Round-3 review: a small row (n=512) must histogram through the
+    strip reduce, counting every emitted symbol."""
     import jax.numpy as jnp
-    from qatzip_tpu.ops.deflate_pack import _deflate_analyze_hist
+    from qatzip_tpu.ops.deflate_pack import deflate_analyze_hist
 
     rng = np.random.default_rng(1)
     data = jnp.array(rng.integers(65, 70, (2, 512), dtype=np.uint8))
     lens = jnp.array([512, 300], jnp.int32)
-    hist, ml, dist, taken, lit = _deflate_analyze_hist(
+    hist, ml, dist, taken, lit = deflate_analyze_hist(
         data, lens, n=512, parse_seg=512, ctx_words=4, probes=6,
-        search_seg=0, search_overlap=1024, pallas="interpret")
+        search_seg=0, search_overlap=1024)
     assert hist.shape == (2, 316)
     emitted = np.asarray(taken[0]) | np.asarray(lit[0])
     assert int(np.asarray(hist)[0, :286].sum()) == int(emitted.sum())
-
-
-def test_pallas_explicit_subset_on_cpu(monkeypatch):
-    """Round-3 review: QZTPU_PALLAS=k1,k3 on the CPU backend must select
-    the interpreted subset (so single-kernel debugging works), not
-    silently fall back to pure-XLA scatter."""
-    from qatzip_tpu.ops.deflate_pack import _pallas_mode, _pk
-
-    monkeypatch.setenv("QZTPU_PALLAS", "k1,k3")
-    mode = _pallas_mode("cpu")
-    assert mode == "interpret:k1,k3"
-    assert _pk(mode, "k1") and _pk(mode, "k3")
-    assert not _pk(mode, "k2") and not _pk(mode, "k4")
-    monkeypatch.setenv("QZTPU_PALLAS", "auto")
-    assert _pallas_mode("cpu") == "scatter"
-    assert _pallas_mode("tpu") == "kernel:k1,k3"

@@ -6,6 +6,10 @@
 #
 # Usage: tools/run_perf_test.sh [-p processes] [-t threads] [-l loops]
 #        [-b block_sz] [-D comp|decomp|both] [-s]   (-s = software only)
+#
+# Without -s every process drives the device engine on a GPU of its own
+# (CUDA_VISIBLE_DEVICES): a JAX process reserves most of a card's memory,
+# so two processes cannot share one. More processes than GPUs is refused.
 
 set -u
 cd "$(dirname "$0")/.."
@@ -29,6 +33,14 @@ while getopts "p:t:l:b:D:s" opt; do
   esac
 done
 
+if [ -z "$FORCE_SW" ]; then
+  NGPU=$(nvidia-smi -L 2>/dev/null | grep -c '^GPU ')
+  if [ "$PROCS" -gt "$NGPU" ]; then
+    echo "[perf] $PROCS device processes need one GPU each; found $NGPU (use -s for software)" >&2
+    exit 2
+  fi
+fi
+
 TMP=$(mktemp -d)
 trap 'rm -rf "$TMP"' EXIT
 
@@ -36,6 +48,9 @@ echo "[perf] $PROCS procs x $THREADS threads, loops=$LOOPS block=$BLOCK dir=$DIR
 
 pids=()
 for p in $(seq 1 "$PROCS"); do
+  if [ -z "$FORCE_SW" ]; then
+    export CUDA_VISIBLE_DEVICES=$((p - 1))
+  fi
   QZTPU_FORCE_SW=${FORCE_SW:-0} python tools/qztest.py \
       -m 4 -t "$THREADS" -l "$LOOPS" -b "$BLOCK" -D "$DIRECTION" -v \
       > "$TMP/proc$p.log" 2>/dev/null &

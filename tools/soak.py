@@ -34,7 +34,7 @@ def corpus(rng, n, kind):
         return (base * 40)[:n]
     if kind == 3:
         return bytes(n)
-    words = [b"the ", b"of ", b"tpu ", b'<row id="%d"/>' % int(n), b"\n"]
+    words = [b"the ", b"of ", b"gpu ", b'<row id="%d"/>' % int(n), b"\n"]
     return b"".join(words[int(i) % 5]
                     for i in rng.integers(0, 5, max(n // 3, 1)))[:n]
 
